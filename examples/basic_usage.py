@@ -19,7 +19,7 @@ back = kt.asnumpy(kt.ifft(spectrum))
 err = np.abs(back - x).max()
 print(f"1024-pt fft→ifft roundtrip max err: {err:.2e}")
 
-# planes (SoA) API — the Pallas-native calling convention
+# planes (SoA) API — the engine's native calling convention
 yr, yi = kt.fft_split(np.ascontiguousarray(x.real),
                       np.ascontiguousarray(x.imag))
 print(f"one-sided energy: {float((np.asarray(yr)**2 + np.asarray(yi)**2).sum()):.3f}")

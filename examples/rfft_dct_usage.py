@@ -20,7 +20,7 @@ print("rfft:", np.asarray(spec).shape)
 back = np.asarray(kt.irfft(spec, n=1024))
 print(f"irfft roundtrip max err: {np.abs(back - frames).max():.2e}")
 
-c2 = kt.dct(frames, 2)                       # DCT-II (MXU matmul)
+c2 = kt.dct(frames, 2)                       # DCT-II (cosine-matrix matmul)
 d2 = kt.dst(frames, 2)                       # DST-II
 rec = np.asarray(kt.idct(c2, 2))
 print(f"dct2/idct2 roundtrip max err: {np.abs(rec - frames).max():.2e}")

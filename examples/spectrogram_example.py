@@ -10,11 +10,9 @@ from pathlib import Path
 
 sys.path.insert(0, str(Path(__file__).resolve().parent.parent))
 
-from kofft_tpu.cli.sanity_check import render, _apply_platform_override
+from kofft_tpu.cli.sanity_check import render
 from kofft_tpu.utils.audio import read_audio
 from kofft_tpu.utils.image import save_png
-
-_apply_platform_override()
 
 
 def main(argv=None) -> int:

@@ -1,8 +1,8 @@
-"""kofft-tpu: a TPU-native spectral transform framework.
+"""kofft: a spectral transform framework in JAX, run on NVIDIA GPUs.
 
-Brand-new JAX/XLA/Pallas implementation of the capability surface of the
-reference DSP library (okian/kofft): complex FFT (matmul-DFT + four-step +
-Bluestein engine on the MXU), real FFT, N-D FFT (single-chip and
+A JAX/XLA implementation of the capability surface of the reference DSP
+library (okian/kofft): complex FFT (matmul-DFT + four-step + Bluestein
+engine, or XLA's own FFT), real FFT, N-D FFT (one device and
 mesh-sharded), DCT/DST I-IV, Hartley, Hilbert, cepstrum/MFCC, Goertzel, CZT,
 wavelets, windows, STFT/ISTFT (batch, streaming, sharded), spectrograms and
 tooling. See SURVEY.md for the layer map this implements.

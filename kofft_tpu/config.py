@@ -10,10 +10,10 @@ The reference has a three-layer config (SURVEY.md §5.6):
 
 Tunables
 --------
-KOFFT_TPU_BACKEND        auto | pallas | xla | jnpfft | naive
+KOFFT_TPU_BACKEND        auto | xla | jnpfft | naive
 KOFFT_TPU_DFT_CUTOFF     max n computed by a single direct DFT matmul
-                         (the MXU-native base case; default 1024)
-KOFFT_TPU_PRECISION      highest | high | default  — matmul precision on MXU
+                         (the matmul base case; default 128)
+KOFFT_TPU_PRECISION      highest | high | default  — engine matmul precision
 KOFFT_TPU_SHARD_THRESHOLD  points-per-chip below which we stay single-chip
                          (analog of KOFFT_PAR_FFT_THRESHOLD heuristic,
                          reference ``src/fft.rs:244-307``)
@@ -44,7 +44,7 @@ def _env_str(name: str, default: str, choices: tuple[str, ...]) -> str:
     return v
 
 
-_BACKENDS = ("auto", "pallas", "xla", "jnpfft", "naive")
+_BACKENDS = ("auto", "xla", "jnpfft", "naive")
 _PRECISIONS = ("highest", "high", "default")
 
 
@@ -53,8 +53,7 @@ class _Config:
     # env-derived defaults (read once at import, like the reference OnceLock)
     backend: str = field(
         default_factory=lambda: _env_str("KOFFT_TPU_BACKEND", "auto", _BACKENDS))
-    # 128 won the measured trade (v5e): batched-1024 FFT 2.09 -> ~3.3
-    # Gpts/s vs cutoff 1024, and single 2^20 also improves; SNR unchanged.
+    # chosen on another machine; not re-measured on the H100
     dft_cutoff: int = field(
         default_factory=lambda: _env_int("KOFFT_TPU_DFT_CUTOFF", 128))
     precision: str = field(
@@ -70,8 +69,6 @@ class _Config:
     max_factor: int = field(
         default_factory=lambda: _env_int("KOFFT_TPU_MAX_FACTOR", 13))
     # feature booleans (analog of cargo features, Cargo.toml:46-62)
-    enable_pallas: bool = field(
-        default_factory=lambda: _env_int("KOFFT_TPU_ENABLE_PALLAS", 1) != 0)
     keep_naive_oracles: bool = True  # `slow` feature analog
 
 
@@ -145,22 +142,20 @@ def trace_key() -> tuple:
 
 
 def x64_active() -> bool:
-    """Whether the f64/complex128 tier is live: JAX's x64 mode is on and
-    the default backend can actually execute f64 (TPU cannot — there the
-    engine documents f32-only and downcasts, matching the reference's
-    "f64 path via fallback" guidance; the reference itself is generic over
-    f32/f64, ``src/num.rs:5-29``). CPU/GPU XLA backends run f64 natively."""
+    """Whether the f64/complex128 tier is live: JAX's x64 mode is on (the
+    reference is generic over f32/f64, ``src/num.rs:5-29``; CPU and GPU
+    XLA backends run f64 natively)."""
     import jax
-    if not jax.config.jax_enable_x64:
-        return False
-    return jax.default_backend() != "tpu"
+    return bool(jax.config.jax_enable_x64)
 
 
 def lax_precision():
     """The jax.lax.Precision used for all real matmuls in the engine.
 
-    f32 matmuls on the MXU run as multi-pass bf16 unless precision is raised;
-    'highest' gives ~f32-faithful accumulation and is the default.
+    On the GPU, 'highest' computes f32 dots in full FP32 and is the
+    default; 'high' and 'default' let XLA use the tensor cores at reduced
+    input precision (TF32-class). ``chip_smoke.py`` prints the SNR each
+    tier reaches on the card.
     """
     import jax
     return {

@@ -2,7 +2,7 @@
 
 Mirrors the reference's exhaustive ``FftError`` enum (reference:
 ``src/fft.rs:446-454``: EmptyInput, NonPowerOfTwoNoStd, MismatchedLengths,
-InvalidStride, InvalidHopSize, InvalidValue). On TPU, in-kernel errors are
+InvalidStride, InvalidHopSize, InvalidValue). On the device, in-kernel errors are
 unavailable, so every validation happens eagerly at the Python layer before
 any device launch (see SURVEY.md §5.3).
 """

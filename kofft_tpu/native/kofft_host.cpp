@@ -3,8 +3,8 @@
 // The reference implements its host-side runtime (audio decode, PNG
 // encoding, streaming OLA state) in Rust (sanity-check/src/lib.rs,
 // src/stft.rs:407-520); here the equivalents are C++ behind a C ABI,
-// loaded via ctypes with pure-Python fallbacks. The TPU compute path stays
-// JAX/XLA/Pallas — this library covers the host loops that would otherwise
+// loaded via ctypes with pure-Python fallbacks. The device compute path
+// stays JAX/XLA — this library covers the host loops that would otherwise
 // bottleneck ingest/render pipelines.
 //
 // Build: g++ -O3 -march=native -shared -fPIC kofft_host.cpp -lz -o

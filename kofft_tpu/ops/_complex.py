@@ -1,11 +1,10 @@
 """SoA (split re/im) complex helpers for the matmul FFT engine.
 
-TPU-native analog of the reference's split-complex types
+The analog of the reference's split-complex types
 (``SplitComplex``/``ComplexVec``, ``src/num.rs:236-330``) and its
 FMA-specialized complex multiply (``src/num.rs:145-188``): complex tensors
-are carried as separate real/imag float planes so every multiply lands on
-the MXU as real matmuls and every elementwise op vectorizes on the VPU
-without lane interleaving. AoS<->SoA conversion (``src/num.rs:332-348``)
+are carried as separate real/imag float planes so every multiply is a
+real matmul and every elementwise op works on contiguous floats. AoS<->SoA conversion (``src/num.rs:332-348``)
 becomes ``split``/``merge`` at the public API boundary only.
 """
 
@@ -20,7 +19,7 @@ from ..config import lax_precision
 def host_float_dtype(dtype):
     """The working float dtype for a host input of ``dtype``: f64 is
     preserved when the x64 tier is active (``config.x64_active``: jax
-    x64 on + non-TPU backend), everything else lands on f32 — the
+    x64 on), everything else lands on f32 — the
     single policy every transform entry point shares (reference generic
     Float, ``src/num.rs:5-29``). Complex-input sites apply it to the
     component dtype (``x.real.dtype``)."""
@@ -54,7 +53,7 @@ def merge(re, im):
 
 
 def cmul(ar, ai, br, bi):
-    """Elementwise complex multiply on planes (VPU; FMA-friendly form)."""
+    """Elementwise complex multiply on planes (FMA-friendly form)."""
     return ar * br - ai * bi, ar * bi + ai * br
 
 
@@ -64,10 +63,10 @@ def conj(ar, ai):
 
 def cmatmul_last(ar, ai, br, bi, precision=None):
     """Complex contraction over the last axis of a with the first of b:
-    ``y[..., k] = sum_j a[..., j] * b[j, k]`` as four real matmuls on the MXU.
+    ``y[..., k] = sum_j a[..., j] * b[j, k]`` as four real matmuls.
 
     The 3-multiply Gauss/Karatsuba trick is deliberately not used: the extra
-    adds worsen f32 error and the MXU is rarely the bottleneck vs HBM here.
+    adds worsen f32 error.
     """
     p = precision if precision is not None else lax_precision()
     e = "...j,jk->...k"

@@ -1,15 +1,15 @@
 """O(n log n) FFT-composed fast paths for the trigonometric transforms.
 
 The DCT/DST modules' primary engine is a cached cosine/sine-matrix matmul
-on the MXU — unbeatable for small/mid n but O(n^2) in both FLOPs and
+— fine for small/mid n but O(n^2) in both FLOPs and
 *matrix bytes* (n = 2^16 would need a 16 GB table). The reference's
 ``DctPlanner`` solves this with a length-2n rfft (``src/dct.rs:22-105``);
-these are the TPU equivalents, one identity per kind, all reducing to
+these are the equivalents here, one identity per kind, all reducing to
 
     extend/chirp-premultiply -> FFT_m -> twiddle postmultiply -> Re/Im
 
 with m = 2n (2(n-1) / 2(n+1) for the type-I transforms), so large
-transforms ride the same Pallas/XLA FFT engine as everything else.
+transforms ride the same FFT engine ladder as everything else.
 
 Identities (verified against the matrix forms in tests/test_transforms):
   DCT-II : X_k = Re( e^{-i pi k/(2n)}      F_{2n}([x, 0])_k )

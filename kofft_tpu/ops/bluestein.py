@@ -42,7 +42,7 @@ def _bluestein_planes(xr, xi, n: int, dtype: str, backend: str = "auto"):
     """Unnormalized forward DFT of non-smooth length n on SoA planes.
 
     The caller's backend threads through to the inner pow2 transforms:
-    'auto' rides the dispatched engine (Pallas kernels / zones), an
+    'auto' rides the dispatched engine, an
     explicit name is honored exactly (engine_fft_planes contract)."""
     from .fft import engine_fft_planes  # no recursion: m is pow2-smooth
 

@@ -2,7 +2,7 @@
 
 Reference: ``src/cepstrum.rs:12-98``. The mel filterbank's triangular-filter
 loops (``cepstrum.rs:36-69``) become a precomputed sparse (n_mags, n_mel)
-weight matrix applied as one matmul on the MXU (SURVEY.md component 22) —
+weight matrix applied as one matmul (SURVEY.md component 22) —
 bit-matching the reference's integer bin-edge arithmetic, including its
 ``floor(f * (n_fft + 1) / sample_rate)`` bin mapping and its skip of
 degenerate filters. MFCC = mel -> log(+1e-12) -> DCT-II, truncated.
@@ -33,8 +33,7 @@ __all__ = ["real_cepstrum", "mel_filterbank_matrix", "mel_filterbank", "mfcc"]
 
 
 def _cepstrum_traced(x, backend: str):
-    # unified engine ladder: both FFT passes ride the fused Pallas
-    # kernels at large pow2 n
+    # unified engine ladder for both FFT passes
     n = x.shape[-1]
     dtype = str(x.dtype)
     yr, yi = engine_fft_planes(x, jnp.zeros_like(x), n, False, dtype,

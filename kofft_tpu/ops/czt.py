@@ -1,11 +1,10 @@
 """Chirp Z-Transform: X_k = sum_i x_i * a^{-i} * w^{i*k},  k in [0, m).
 
 Reference: ``src/czt.rs:16-54`` — a naive O(n*m) double loop over real
-input with complex ``w`` and starting point ``a``. Two TPU paths:
+input with complex ``w`` and starting point ``a``. Two paths:
 
   * ``czt`` (default): the O(n*m) kernel *as a matmul* against the cached
-    (n, m) chirp matrix — on the MXU this is the fast path for every
-    practical size and supports arbitrary (possibly non-unit-modulus)
+    (n, m) chirp matrix; supports arbitrary (possibly non-unit-modulus)
     ``w``/``a`` exactly like the reference.
   * ``czt_fast``: O((n+m) log) Bluestein factorization
     w^{ik} = w^{(i^2 + k^2 - (k-i)^2)/2} -> chirp-premultiply, FFT
@@ -27,7 +26,7 @@ from ..config import lax_precision, trace_key
 from ..errors import EmptyInputError, InvalidValueError, require
 from ..plan import next_pow2, tables
 from ._complex import cmul, merge, host_float
-from .fft import engine_fft_planes, _is_tracer, complex_io_supported
+from .fft import engine_fft_planes, _is_tracer
 
 __all__ = ["czt", "czt_fast", "czt_split"]
 
@@ -78,14 +77,7 @@ def czt_split(x, m: int, w: complex, a: complex = 1.0 + 0j):
 def czt(x, m: int, w: complex, a: complex = 1.0 + 0j):
     """CZT of a real signal at m bins (reference ``czt_f32``,
     ``czt.rs:16-54``)."""
-    yr, yi = czt_split(x, m, w, a)
-    if _is_tracer(yr):
-        return merge(yr, yi)
-    if not complex_io_supported():
-        # complex-IO-banned transport: host numpy for any residency (a
-        # device complex array would be unusable there)
-        return np.asarray(yr) + 1j * np.asarray(yi)
-    return merge(yr, yi)
+    return merge(*czt_split(x, m, w, a))
 
 
 @functools.lru_cache(maxsize=None)
@@ -135,9 +127,7 @@ def _czt_fast_fn(n: int, m: int, w: complex, a: complex, dtype: str,
 
 def czt_fast(x, m: int, w: complex, a: complex = 1.0 + 0j,
              backend: Optional[str] = None):
-    """Bluestein-factorized CZT (O((n+m) log); requires |w| = 1).
-
-    Returns host numpy complex on transports without complex IO."""
+    """Bluestein-factorized CZT (O((n+m) log); requires |w| = 1)."""
     w = complex(w)
     a = complex(a)
     require(abs(abs(w) - 1.0) < 1e-6, InvalidValueError,
@@ -151,8 +141,4 @@ def czt_fast(x, m: int, w: complex, a: complex = 1.0 + 0j,
                                   trace_key())
     if _is_tracer(x):
         return merge(*traced(x))
-    yr, yi = jitted(x)
-    if not complex_io_supported():
-        # banned transport: host numpy for any residency
-        return np.asarray(yr) + 1j * np.asarray(yi)
-    return merge(yr, yi)
+    return merge(*jitted(x))

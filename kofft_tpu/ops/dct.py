@@ -2,11 +2,10 @@
 
 Reference: ``src/dct.rs`` — naive O(n^2) loops (``dct.rs:108-178``) plus a
 ``DctPlanner`` whose "fast" path does DCT-II via cosine tables / a length-2n
-rfft (``dct.rs:22-105``). On TPU the design inverts: the O(n^2) form *as a
-matmul against a cached cosine matrix* rides the 128x128 MXU and is the
-fast path for every practical size (one fused matmul, no permutation
-gathers, no complex arithmetic); an rfft-composed path is only worth it for
-very large n. The cosine matrices are computed on host in float64 with
+rfft (``dct.rs:22-105``). Here the O(n^2) form *as a matmul against a
+cached cosine matrix* serves small and mid n (one fused matmul, no
+permutation gathers, no complex arithmetic); an FFT-composed path takes
+over at large n (``FAST_CUTOFF``). The cosine matrices are computed on host in float64 with
 exact phase reduction and cached per (type, n, dtype) — the analog of the
 planner's cosine-table cache (``dct.rs:30-56``).
 
@@ -66,7 +65,7 @@ def _matrix(kind: int, n: int, dtype: str):
 
 # Above this the cosine matrix is too big to be a sane device constant
 # (n^2 floats: 64 MB at 4096) and the O(n log n) FFT-composed path wins —
-# the TPU analog of the reference DctPlanner's length-2n rfft route
+# the analog of the reference DctPlanner's length-2n rfft route
 # (``dct.rs:22-105``). Matmul stays the oracle and the fast path for
 # small/mid n. Tunable for tests.
 FAST_CUTOFF = 4096
@@ -148,8 +147,8 @@ def idct(x, type: int = 2):
 
 
 def dct_batch(xs, type: int = 2):
-    """Batch over the leading dim (reference ``dct.rs:263-306``) — on TPU
-    leading dims are already batched; provided for API parity."""
+    """Batch over the leading dim (reference ``dct.rs:263-306``) — leading
+    dims are already batched; provided for API parity."""
     return dct(xs, type=type)
 
 

@@ -1,8 +1,8 @@
 """DST I-IV, matching the reference's (unnormalized) conventions exactly.
 
 Reference: ``src/dst.rs`` — naive O(n^2) loops (``dst.rs:89-147``) plus a
-``DstPlanner`` sine-table path (``dst.rs:19-87``). Same TPU-first design as
-:mod:`kofft_tpu.ops.dct`: cached sine-matrix matmul on the MXU.
+``DstPlanner`` sine-table path (``dst.rs:19-87``). Same design as
+:mod:`kofft_tpu.ops.dct`: cached sine-matrix matmul.
 
 Conventions (reference formulas, ``dst.rs:89-147``):
   DST-I  : X_k = sum_i x_i sin(pi (i+1)(k+1) / (n+1))

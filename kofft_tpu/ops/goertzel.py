@@ -4,9 +4,8 @@ Reference: ``src/goertzel.rs:16-60`` — bin k = floor(freq * n / sample_rate),
 recurrence s = x + 2cos(w) s1 - s2, magnitude = sqrt(s1^2 + s2^2 - coeff*s1*s2),
 which equals |X_k| for X_k = sum_i x_i e^{-j w i}.
 
-TPU design (SURVEY.md component 20): the recurrence is a dot product in
-disguise — ``goertzel`` computes |X_k| as two basis dots (one fused VPU/MXU
-pass, batched over leading dims and over many bins at once via
+Design (SURVEY.md component 20): the recurrence is a dot product in
+disguise — ``goertzel`` computes |X_k| as two basis dots (one fused pass, batched over leading dims and over many bins at once via
 ``goertzel_bins``). ``goertzel_scan`` keeps the literal O(n) recurrence as a
 ``lax.scan`` for streaming parity.
 """
@@ -61,7 +60,7 @@ def _jit_bins(n: int, bins: tuple, dtype: str, ck: tuple = ()):
 
 
 def goertzel_bins(x, bins):
-    """|X_k| for many integer bins at once (batched dot on the MXU)."""
+    """|X_k| for many integer bins at once (one batched dot)."""
     host = not isinstance(x, (jax.Array, jax.core.Tracer))
     x = host_float(x) if host else jnp.asarray(x)
     require(x.ndim >= 1 and x.shape[-1] >= 1, EmptyInputError,

@@ -1,6 +1,6 @@
 """Discrete Hartley Transform.
 
-Reference: ``src/hartley.rs:12-46`` — naive O(n^2) cas-kernel loop. On TPU
+Reference: ``src/hartley.rs:12-46`` — naive O(n^2) cas-kernel loop. Here
 the DHT is the composite DHT(x) = Re(FFT(x)) - Im(FFT(x)) over the matmul
 FFT engine (cas(t) = cos t + sin t and FFT uses cos t - i sin t), so every
 FFT strategy (four-step, Bluestein) is inherited for free.
@@ -25,9 +25,8 @@ __all__ = ["dht", "dht_batch", "dht_multi_channel"]
 
 def _dht_traced(x, backend: str):
     n = x.shape[-1]
-    # the unified engine ladder: large pow2 rides the fused Pallas
-    # kernels, mid-size batched the jnp.fft zone, everything else the
-    # matmul tree — the DHT composite inherits every engine for free
+    # the unified engine ladder: the DHT composite inherits every
+    # engine for free
     yr, yi = engine_fft_planes(x, jnp.zeros_like(x), n, False,
                                str(x.dtype), backend)
     return yr - yi

@@ -19,8 +19,7 @@ import numpy as np
 from ..config import trace_key
 from ..errors import EmptyInputError, require
 from ._complex import merge, host_float
-from .fft import (_is_tracer, complex_io_supported, engine_fft_planes,
-                  resolve_backend)
+from .fft import _is_tracer, engine_fft_planes, resolve_backend
 
 __all__ = ["hilbert_analytic", "hilbert_analytic_split", "hilbert"]
 
@@ -40,7 +39,7 @@ def _sideband_mask(n: int) -> np.ndarray:
 
 def _analytic_planes(x, backend: str):
     # unified engine ladder: the FFT->mask->IFFT composite rides the
-    # fused Pallas kernels at large pow2 n like the core transforms
+    # same engines as the core transforms
     n = x.shape[-1]
     dtype = str(x.dtype)
     yr, yi = engine_fft_planes(x, jnp.zeros_like(x), n, False, dtype,
@@ -71,18 +70,8 @@ def hilbert_analytic_split(x, backend: Optional[str] = None):
 
 
 def hilbert_analytic(x, backend: Optional[str] = None):
-    """Analytic signal: x + i*H[x] (reference ``hilbert_analytic``).
-
-    On transports that cannot move or re-feed complex buffers, the
-    result is host numpy for ANY input residency — an eagerly merged
-    device complex array would be unusable there (not downloadable and
-    not re-feedable; use the ``_split`` variant to stay on device)."""
-    zr, zi = hilbert_analytic_split(x, backend=backend)
-    if _is_tracer(zr):
-        return merge(zr, zi)
-    if not complex_io_supported():
-        return np.asarray(zr) + 1j * np.asarray(zi)
-    return merge(zr, zi)
+    """Analytic signal: x + i*H[x] (reference ``hilbert_analytic``)."""
+    return merge(*hilbert_analytic_split(x, backend=backend))
 
 
 def hilbert(x, backend: Optional[str] = None):

@@ -2,7 +2,7 @@
 
 Reference: ``src/ndfft.rs`` — 2-D/3-D FFT by row-column(-depth) decomposition
 over *strided* 1-D FFTs (``ndfft.rs:74-100``, ``:114-153``), whose
-gather/scatter hot spot is cache-hostile. The TPU formulation replaces
+gather/scatter hot spot is cache-hostile. This formulation replaces
 strided access with moveaxis (XLA lays out/fuses the transpose) + the
 contiguous batched matmul engine per axis — the single most important
 architectural divergence from the reference (SURVEY.md §3.5). The
@@ -23,31 +23,10 @@ from ..config import trace_key
 from ..errors import (EmptyInputError, InvalidValueError,
                       MismatchedLengthsError, require)
 from ._complex import merge
-from .fft import (_fft_planes, _is_tracer, _platform_default,
-                  complex_io_supported, engine_fft_planes, resolve_backend)
+from .fft import _is_tracer, engine_fft_planes, resolve_backend
 
 __all__ = ["fft2", "ifft2", "fft3", "ifft3", "fftn", "ifftn",
            "fftn_split", "rfftn", "irfftn", "rfftn_split", "irfftn_split"]
-
-
-def _nd_jnp_zone(shape: tuple, axes: tuple) -> bool:
-    """Shape class where XLA's fused built-in fftn is the measured-fastest
-    engine (v5e): >= 2 mid-size pow2 axes at >= 2^20 total points — it
-    avoids our per-axis moveaxis round-trips (1024^2: ours 168 us, fftn
-    147 us; 2048^2: 669 vs 591). Smaller grids (<= 512^2) and short axes
-    (128^3) stay on the per-axis engine, which wins there (1.4-1.6x)."""
-    if len(axes) < 2:
-        return False
-    total = 1
-    for s in shape:
-        total *= s
-    if total < (1 << 20):
-        return False
-    for a in axes:
-        n = shape[a]
-        if n & (n - 1) or not ((1 << 10) <= n <= (1 << 16)):
-            return False
-    return True
 
 
 _SMALL_AXES_MAX_N = 256
@@ -58,20 +37,8 @@ def _small_axes_zone(shape: tuple, axes: tuple) -> bool:
     axes, each small enough for one dense DFT matmul. Covers the 128^3
     class where the moveaxis round-trips of the generic path dominate.
     Capped at 15 total dims (the einsum letter pool); beyond that the
-    generic per-axis path handles it.
-
-    256^3 PROVEN FLOOR (r5, VERDICT r4 #5): this zone also owns the
-    beyond-VMEM 256^3 class at jnp parity on `highest` (3564 vs
-    3481 us) and 1.47x on `default` (2381 vs 3489). `highest` is
-    MXU-bound on the dense k=256 Gauss dots (~77 GFLOP at the 6-pass
-    f32 rate ~= 2.3 ms arithmetic floor before HBM/relayout), and no
-    factored form can undercut it: 256-length lines decompose into
-    k <= 16 leaf dots that underutilize the 128-deep MXU — the
-    bt-folded fused-2D + axis-0 GEMM candidate measured 4485/5850 us
-    `highest` and 2878/2910 `default` (bt=8/16,
-    benchmarks/exp_cube.py|.out), and the r4 small-block fused-2D +
-    einsum candidate lost too (exp_2d_big.py). Do not retry without a
-    structurally different idea."""
+    generic per-axis path handles it. The 256 cap was chosen on another
+    machine and has not been re-measured on the H100."""
     if len(axes) < 2 or len(shape) > 15:
         return False
     return all(2 <= shape[a] <= _SMALL_AXES_MAX_N for a in axes)
@@ -82,22 +49,9 @@ def _axis_einsum_planes(xr, xi, axes: tuple, inverse: bool, dtype: str):
     the axis — ``Y[a,k,c] = sum_j F[j,k] X[a,j,c]`` — with the Gauss
     3-multiply complex form. No explicit moveaxis: XLA fuses the axis
     relayout into the GEMM. Replaces the reference's strided per-axis
-    decomposition (``ndfft.rs:114-153``) for small-axis grids.
-
-    Measured (v5e, 128^3 c32, chained): 199.5 us vs 240.2 for XLA's
-    fused fftn, 246.0 for the 4-mult form, 304.2 for the rotation
-    formulation ('kj,abj->kab'), and 243.5 for the r1 moveaxis engine —
-    the only XLA formulation that beats the XLA built-in here, and the
-    one place where Gauss DOES pay in XLA-land (the 128^3 planes stay
-    VMEM-resident across the chain, so the einsums are pass-bound, not
-    HBM-bound). SNR 135.3 dB vs f64. Inverse via conjugation; the 1/n
-    scaling is applied by the caller per axis convention.
-
-    On TPU the pow2 [128, 512]-axis subclass now routes one level
-    higher to the fused one-call Pallas kernel (175.4 us at 128^3,
-    ``pallas_kernels.fused_nd_zone``); this einsum path remains the
-    engine for CPU/f64, non-pow2 small axes, partial-axes transforms,
-    and sub-2^17 grids."""
+    decomposition (``ndfft.rs:114-153``) for small-axis grids. Inverse
+    via conjugation; the 1/n scaling is applied by the caller per axis
+    convention."""
     from ..config import lax_precision
     from ..plan import tables
     if inverse:
@@ -126,7 +80,7 @@ def _axis_einsum_planes(xr, xi, axes: tuple, inverse: bool, dtype: str):
 
 def _inverse_rescale(yr, yi, shape: tuple, axes: tuple, inverse: bool):
     """1/n-per-axis scaling for paths whose engine returns the
-    UNNORMALIZED inverse (fused-nd, einsum)."""
+    UNNORMALIZED inverse (the einsum route)."""
     if not inverse:
         return yr, yi
     scale = 1.0
@@ -138,40 +92,12 @@ def _inverse_rescale(yr, yi, shape: tuple, axes: tuple, inverse: bool):
 def _fftn_planes(xr, xi, axes: tuple, inverse: bool, backend: str):
     dtype = str(xr.dtype)
     nd = xr.ndim
-    if (backend in ("auto", "pallas")
-            and _platform_default() == "pallas" and dtype == "float32"):
-        from . import pallas_kernels as PK
-        from .pallas_fft import (pallas_fft2_planes, pallas_fftn_planes,
-                                 pallas_supported)
-        # the env kill-switch and TPU gate ride pallas_supported's
-        # smallest served size; the shape gates are the fused zones.
-        # The 2-D zone is checked BEFORE the jnp zone below (1024^2
-        # sits in both; the 2-D kernel wins 134 vs 152 us) and BEFORE
-        # the dense fused-nd zone (512^2 sits in both; the leaf-32
-        # recursion wins 33.8 vs 51.0) — the two zones are disjoint
-        # only by this ordering, not by construction
-        if pallas_supported(1 << 14, dtype):
-            if PK.fused_2d_zone(xr.shape, axes):
-                yr, yi = pallas_fft2_planes(xr, xi, inverse)
-                return _inverse_rescale(yr, yi, xr.shape, axes, inverse)
-            if PK.fused_2d_big_zone(xr.shape, axes):
-                # beyond-VMEM images (4096^2-class): the two-call pair
-                # at two HBM round-trips beats both jnp.fftn and the
-                # per-axis engine route (benchmarks/exp_2d_big.py)
-                from .pallas_fft import pallas_fft2_big_planes
-                yr, yi = pallas_fft2_big_planes(xr, xi, inverse)
-                return _inverse_rescale(yr, yi, xr.shape, axes, inverse)
-            if PK.fused_nd_zone(xr.shape, axes):
-                yr, yi = pallas_fftn_planes(xr, xi, inverse)
-                return _inverse_rescale(yr, yi, xr.shape, axes, inverse)
-    if (backend == "auto" and _platform_default() == "pallas"
-            and _nd_jnp_zone(xr.shape, axes)):
+    if backend == "jnpfft":
         x = merge(xr, xi)
         y = (jnp.fft.ifftn(x, axes=axes) if inverse
              else jnp.fft.fftn(x, axes=axes))
         return jnp.real(y), jnp.imag(y)
-    if (backend in ("auto", "xla", "pallas")
-            and _small_axes_zone(xr.shape, axes)):
+    if backend in ("auto", "xla") and _small_axes_zone(xr.shape, axes):
         yr, yi = _axis_einsum_planes(xr, xi, axes, inverse, dtype)
         return _inverse_rescale(yr, yi, xr.shape, axes, inverse)
     for ax in axes:
@@ -180,10 +106,7 @@ def _fftn_planes(xr, xi, axes: tuple, inverse: bool, backend: str):
             xr = jnp.moveaxis(xr, a, -1)
             xi = jnp.moveaxis(xi, a, -1)
         n = xr.shape[-1]
-        if backend in ("pallas", "auto"):
-            xr, xi = engine_fft_planes(xr, xi, n, inverse, dtype, backend)
-        else:
-            xr, xi = _fft_planes(xr, xi, n, inverse, backend, dtype)
+        xr, xi = engine_fft_planes(xr, xi, n, inverse, dtype, backend)
         if inverse:
             xr, xi = xr / n, xi / n
         if a != nd - 1:
@@ -216,7 +139,6 @@ def fftn_split(xr, xi, axes: Optional[Sequence[int]] = None,
     require(xr.ndim >= 1, EmptyInputError, "fftn input must have >= 1 dim")
     axes = _norm_axes(xr.ndim, axes)
     b = resolve_backend(backend)
-    b = "xla" if b in ("jnpfft",) else b
     if _is_tracer(xr) or _is_tracer(xi):
         return _fftn_planes(xr, xi, axes, inverse, b)
     return _jit_fftn(xr.shape, axes, inverse, b, trace_key())(xr, xi)
@@ -241,15 +163,10 @@ def _dispatch_nd(x, axes, inverse, backend):
             "fftn input must be non-empty")
     axes = _norm_axes(xr.ndim, axes)
     b = resolve_backend(backend)
-    b = "xla" if b in ("jnpfft",) else b
     if _is_tracer(xr):
         yr, yi = _fftn_planes(xr, xi, axes, inverse, b)
         return merge(yr, yi)
     yr, yi = _jit_fftn(xr.shape, axes, inverse, b, trace_key())(xr, xi)
-    if not complex_io_supported():
-        # banned transport: host numpy for any residency (a device
-        # complex array would be neither downloadable nor re-feedable)
-        return np.asarray(yr) + 1j * np.asarray(yi)
     return merge(yr, yi)
 
 
@@ -279,11 +196,9 @@ def ifft2(x, backend: Optional[str] = None):
 def rfftn_split(x, axes: Optional[Sequence[int]] = None,
                 backend: Optional[str] = None):
     """N-D FFT of a REAL input on SoA planes (numpy ``rfftn``
-    convention, no reference analog — TPU-native superset): real
-    one-sided FFT along the LAST of ``axes`` (length ``n//2 + 1``),
-    complex FFT over the remaining axes. Composes the verified rfft and
-    fftn engines, so each stage rides its measured-fastest path
-    (in-kernel one-sided assembly, fused N-D zone...)."""
+    convention, no reference analog): real one-sided FFT along the LAST
+    of ``axes`` (length ``n//2 + 1``), complex FFT over the remaining
+    axes. Composes the verified rfft and fftn engines."""
     from .rfft import rfft_split
     x = jnp.asarray(x)
     # uniform complex rejection: host callers hit the same typed error
@@ -350,10 +265,6 @@ def rfftn(x, axes: Optional[Sequence[int]] = None,
                 "rfftn input must be real")
         x = np.ascontiguousarray(x).astype(host_float_dtype(x.dtype))
     yr, yi = rfftn_split(x, axes=axes, backend=backend)
-    if _is_tracer(yr):
-        return merge(yr, yi)
-    if not complex_io_supported():
-        return np.asarray(yr) + 1j * np.asarray(yi)
     return merge(yr, yi)
 
 
@@ -374,10 +285,7 @@ def irfftn(y, n: Optional[int] = None,
         y = jnp.asarray(y)
         yr, yi = (jnp.real(y), jnp.imag(y)) if jnp.iscomplexobj(y) \
             else (y, jnp.zeros_like(y))
-    x = irfftn_split(yr, yi, n=n, axes=axes, backend=backend)
-    if not _is_tracer(x) and not complex_io_supported():
-        return np.asarray(x)
-    return x
+    return irfftn_split(yr, yi, n=n, axes=axes, backend=backend)
 
 
 def fft3(x, backend: Optional[str] = None):

@@ -12,7 +12,7 @@ Reference: ``src/wavelet.rs`` (732 LoC). Semantics reproduced exactly:
   * multi-level: odd-length levels repeat the last sample before the next
     analysis step (``wavelet.rs:54-119``).
 
-TPU design (SURVEY.md component 18): the analysis pass is a gather with a
+Design (SURVEY.md component 18): the analysis pass is a gather with a
 host-precomputed reflected index matrix followed by a small tensordot (a
 strided depthwise conv in disguise — the explicit index form keeps the
 reference's reflection bit-exact); synthesis is a scatter-add with the same
@@ -143,7 +143,6 @@ def _jit_forward(family: str, n: int):
     Only the tail can leave [0, n): 2i + k >= 0 always, and for n >= taps
     one reflection suffices (index max n+taps-3 <= 2(n-1)), so the exact
     reference reflection reduces to appending flip(x[n-taps+1 : n-1]).
-    Measured on v5e at 2^16/db4: 1886 us (index-matrix gather) -> conv.
     Tiny n keeps the gather path (multiple reflections)."""
     h, g, _, _ = FAMILIES[family]
     taps = len(h)

@@ -1,7 +1,7 @@
 """kofft_tpu.parallel — mesh-sharded transforms over ICI collectives.
 
 The reference's parallelism is Rayon shared-memory work-stealing gated by a
-cost heuristic (``src/fft.rs:47-307``); its TPU-native equivalent is a
+cost heuristic (``src/fft.rs:47-307``); its equivalent here is a
 device ``Mesh`` with ``shard_map`` + ``jax.lax`` collectives: ``all_to_all``
 for N-D FFT pencil transposes, ``ppermute`` halo exchange for STFT/ISTFT
 overlap, ``psum`` for reductions (SURVEY.md §2 "distributed communication

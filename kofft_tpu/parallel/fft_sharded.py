@@ -158,7 +158,7 @@ def _build_overlap(mesh, axis_name: str, n: int, n1: int, n2: int, d: int,
     >= 85% weak-scaling target; reference decomposition
     /root/reference/src/ndfft.rs:114-153). Here each stage is split into
     K independent chunk chains so chunk k+1's ``all_to_all`` can fly
-    while chunk k's local DFT runs on the MXU — XLA's TPU latency-hiding
+    while chunk k's local DFT runs — XLA's latency-hiding
     scheduler overlaps independent collective/compute chains; on CPU the
     chains compile to 2K mutually independent collective ops per stage
     (machine-checked by ``validate.hlo_a2a_independent_sources``).

@@ -19,7 +19,7 @@ the nested digits — worked out below and pinned by parity tests on a
 (2, 4) virtual mesh.
 
 Reference analog: none (the reference is single-process); this is the
-TPU-native scaling design the survey derives from its strided N-D
+scaling design the survey derives from its strided N-D
 decomposition (``/root/reference/src/ndfft.rs:114-153``).
 """
 

@@ -1,17 +1,16 @@
 """Machine-checked communication-volume invariants.
 
-The weak-scaling claim (>= 85% efficiency, BASELINE config #5) rests on
-the collective programs moving exactly the canonical volume: each tiled
-``all_to_all`` relocates ``(D-1)/D`` of the local shard, constant per
-chip in weak scaling. A pod slice is needed to *time* that; the volume
-itself is checkable anywhere by auditing the compiled HLO — which is
-what these helpers do (VERDICT r1 item 10: report the invariant as a
-checked property, not a docstring remark).
+The sharded programs must move exactly the canonical collective volume:
+each tiled ``all_to_all`` relocates ``(D-1)/D`` of the local shard,
+constant per device in weak scaling. The volume is checkable on any
+backend by auditing the compiled HLO — which is what these helpers do
+(report the invariant as a checked property, not a docstring remark).
 """
 
 from __future__ import annotations
 
 import re
+from dataclasses import dataclass
 
 __all__ = ["hlo_all_to_all_local_bytes", "fft_sharded_expected_a2a_bytes",
            "check_fft_sharded_comm_volume", "hlo_a2a_independent_sources",
@@ -20,17 +19,55 @@ __all__ = ["hlo_all_to_all_local_bytes", "fft_sharded_expected_a2a_bytes",
 _DTYPE_BYTES = {"f32": 4, "f64": 8, "bf16": 2, "f16": 2, "c64": 8,
                 "c128": 16, "s32": 4, "u32": 4}
 
-# matches the synchronous form (%all-to-all = ... all-to-all(...)) and
-# the async pair's DONE op (%all-to-all-done = ...), whose result type
-# is exactly the transferred local shard; START ops are skipped entirely
-# so the aliased-operand-buffer layout of the start tuple (which varies
-# across XLA versions) can never double- or under-count (ADVICE r2
-# item 2 — the previous halve-the-start heuristic was brittle)
-_A2A_DEF = re.compile(
-    r"%all-to-all(-start|-done)?(?:\.\d+)?\s*=\s*(.*?)"
-    r"\s*all-to-all(?:-start|-done)?\(",
-    re.DOTALL)
 _SHAPE = re.compile(r"(f32|f64|bf16|f16|c64|c128|s32|u32)\[([\d,]*)\]")
+_DEF = re.compile(r"^\s*(?:ROOT\s+)?%?([\w.\-]+)\s*=\s*(.*)$")
+_OPCODE = re.compile(r"\s([a-z][a-z0-9\-]*)\(")
+_HEADER = re.compile(r"^\s*(?:ENTRY\s+)?%?([\w.\-]+)")
+_CALLS = re.compile(r"calls=%?([\w.\-]+)")
+_REF = re.compile(r"%([\w.\-]+)")
+_GROUPS = re.compile(r"replica_groups=\{(\{[\d,]+\})")
+
+
+@dataclass(frozen=True)
+class _Op:
+    name: str
+    comp: str
+    opcode: str
+    type_text: str
+    rest: str          # operand list and attributes
+
+    @property
+    def operands(self) -> list:
+        return [r for r in _REF.findall(self.rest) if r != self.name]
+
+    @property
+    def calls(self):
+        m = _CALLS.search(self.rest)
+        return m.group(1) if m else None
+
+
+def _hlo_ops(compiled_text: str) -> list:
+    """The instructions of an HLO module text, each with the computation
+    it sits in. The opcode is read from the instruction itself, not its
+    name: backends name collectives differently (a GPU module may wrap an
+    all-to-all in an async computation under another name)."""
+    ops, comp = [], ""
+    for line in compiled_text.splitlines():
+        stripped = line.strip()
+        if stripped.endswith("{") and " = " not in stripped:
+            m = _HEADER.match(stripped)
+            comp = m.group(1) if m else ""
+            continue
+        m = _DEF.match(line)
+        if not m:
+            continue
+        rest = " " + m.group(2)
+        op = _OPCODE.search(rest)
+        if not op:
+            continue
+        ops.append(_Op(m.group(1), comp, op.group(1), rest[: op.start()],
+                       rest[op.end():]))
+    return ops
 
 
 def _float_shape_bytes(type_text: str) -> int:
@@ -48,44 +85,53 @@ def _float_shape_bytes(type_text: str) -> int:
     return total
 
 
+def _a2a_transfers(ops: list) -> list:
+    """(op, attribute-bearing op) for every all-to-all transfer, counted
+    once: a synchronous ``all-to-all`` by its result (one inside an async
+    wrapper computation once per ``async-start`` that calls it), an
+    ``all-to-all-start``/``-done`` pair by the DONE op's result type —
+    the transferred shard, whatever aliased buffers the start tuple
+    lists."""
+    by_name = {op.name: op for op in ops}
+    wrapped = {op.calls for op in ops if op.opcode == "async-start"}
+    out = []
+    for op in ops:
+        if op.opcode == "all-to-all" and op.comp not in wrapped:
+            out.append((op, op))
+        elif op.opcode == "all-to-all-done":
+            start = by_name.get(op.operands[0]) if op.operands else None
+            out.append((op, start or op))
+        elif op.opcode == "async-start":
+            out += [(inner, inner) for inner in ops
+                    if inner.comp == op.calls
+                    and inner.opcode == "all-to-all"]
+    return out
+
+
 def hlo_all_to_all_local_bytes(compiled_text: str) -> int:
     """Total local bytes participating in ``all-to-all`` ops in a
-    compiled (post-SPMD) HLO module, per chip.
+    compiled (post-SPMD) HLO module, per device.
 
     Handles the forms XLA emits: a single tiled array result, the
     tuple-of-chunks decomposition (one operand per peer) — where the
-    result shapes sum to the full local shard — and async start/done
-    pairs, counted once via the DONE op's result type (the actual
-    transferred shard; s32/u32 control scalars are skipped)."""
-    total = 0
-    for m in _A2A_DEF.finditer(compiled_text):
-        if m.group(1) == "-start":
-            continue                   # counted at the matching -done
-        total += _float_shape_bytes(m.group(2))
-    return total
-
-
-_GROUPS = re.compile(r"replica_groups=\{(\{[\d,]+\})")
+    result shapes sum to the full local shard — async start/done pairs,
+    and async wrapper computations around a synchronous op."""
+    return sum(_float_shape_bytes(op.type_text)
+               for op, _ in _a2a_transfers(_hlo_ops(compiled_text)))
 
 
 def hlo_a2a_bytes_by_group_size(compiled_text: str) -> dict:
-    """Per-axis collective volume audit for hierarchical (slice, chip)
+    """Per-axis collective volume audit for two-level (slice, chip)
     programs: local all-to-all bytes keyed by the op's replica-group
-    size. On a two-level mesh the intra-slice (ICI) legs have groups of
-    ``chips_per_slice`` and the inter-slice (DCN) legs groups of
-    ``n_slices`` — so the returned dict states exactly how many bytes
-    ride each interconnect tier (SURVEY §5.8's ICI/DCN split as a
-    checked property)."""
+    size. On a two-level mesh the intra-group legs have groups of
+    ``chips_per_slice`` and the inter-group legs groups of ``n_slices``
+    — so the returned dict states exactly how many bytes ride each leg
+    (SURVEY §5.8's split as a checked property)."""
     out: dict[int, int] = {}
-    for m in _A2A_DEF.finditer(compiled_text):
-        if m.group(1) == "-start":
-            continue
-        # the op's attributes follow the operand list on the same line
-        line_end = compiled_text.find("\n", m.end())
-        attrs = compiled_text[m.end(): line_end if line_end > 0 else None]
-        g = _GROUPS.search(attrs)
+    for op, attrs in _a2a_transfers(_hlo_ops(compiled_text)):
+        g = _GROUPS.search(attrs.rest)
         size = len(g.group(1).strip("{}").split(",")) if g else 0
-        out[size] = out.get(size, 0) + _float_shape_bytes(m.group(2))
+        out[size] = out.get(size, 0) + _float_shape_bytes(op.type_text)
     return out
 
 
@@ -126,35 +172,30 @@ def hlo_ppermute_bytes_by_tier(compiled_text: str,
     return out
 
 
-_OP_DEF = re.compile(r"\s*(%[\w.\-]+)\s*=")
-_OP_REF = re.compile(r"%[\w.\-]+")
-
-
 def hlo_a2a_independent_sources(compiled_text: str) -> dict:
     """Dependency-structure audit of the collective pipeline.
 
     Parses the compiled HLO's op graph (op -> operand names) and
-    classifies every ``all-to-all`` (sync form or async START; -done ops
-    are the completion of a start and not counted separately): an op is
-    an *independent source* when no other all-to-all is among its
-    transitive operands. The sequential four-step has exactly 2 (the
-    stage-1 re/im pair — everything later depends on them); the
-    ``overlap=K`` pipeline has 2K mutually independent stage-A chains,
-    which is precisely the property that lets the TPU latency-hiding
-    scheduler fly chunk k+1's collective during chunk k's DFT. Returns
+    classifies every all-to-all (sync form, async START, or an async
+    wrapper around one; -done ops are the completion of a start and not
+    counted separately): an op is an *independent source* when no other
+    all-to-all is among its transitive operands. The sequential
+    four-step has exactly 2 (the stage-1 re/im pair — everything later
+    depends on them); the ``overlap=K`` pipeline has 2K mutually
+    independent stage-A chains, which is precisely the property that
+    lets XLA's latency-hiding scheduler fly chunk k+1's collective
+    during chunk k's DFT. Returns
     ``{"total": ..., "independent_sources": ...}``."""
-    deps: dict[str, list] = {}
-    for line in compiled_text.splitlines():
-        m = _OP_DEF.match(line)
-        if not m:
-            continue
-        deps[m.group(1)] = [r for r in _OP_REF.findall(line[m.end():])
-                            if r != m.group(1)]
+    ops = _hlo_ops(compiled_text)
+    wrapped = {op.calls for op in ops if op.opcode == "async-start"}
+    a2a_comps = {op.comp for op in ops if op.opcode == "all-to-all"}
 
-    def is_a2a(name: str) -> bool:
-        base = name.split(".")[0]
-        return base in ("%all-to-all", "%all-to-all-start")
+    def is_a2a(op) -> bool:
+        if op.opcode in ("all-to-all", "all-to-all-start"):
+            return op.comp not in wrapped
+        return op.opcode == "async-start" and op.calls in a2a_comps
 
+    by_name = {op.name: op for op in ops}
     memo: dict[str, bool] = {}
 
     def has_a2a_ancestor(name: str) -> bool:
@@ -162,14 +203,15 @@ def hlo_a2a_independent_sources(compiled_text: str) -> dict:
             return memo[name]
         memo[name] = False           # cycle guard (HLO is a DAG)
         out = False
-        for op in deps.get(name, ()):
-            if is_a2a(op) or has_a2a_ancestor(op):
+        for dep in by_name[name].operands if name in by_name else ():
+            if dep in by_name and (is_a2a(by_name[dep])
+                                   or has_a2a_ancestor(dep)):
                 out = True
                 break
         memo[name] = out
         return out
 
-    a2as = [nm for nm in deps if is_a2a(nm)]
+    a2as = [op.name for op in ops if is_a2a(op)]
     indep = [nm for nm in a2as if not has_a2a_ancestor(nm)]
     return {"total": len(a2as), "independent_sources": len(indep)}
 

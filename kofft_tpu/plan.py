@@ -1,6 +1,6 @@
 """Plan objects, twiddle/DFT-matrix tables, and the plan cache.
 
-TPU-native analog of the reference's ``FftPlanner`` (``src/fft.rs:332-445``):
+The analog of the reference's ``FftPlanner`` (``src/fft.rs:332-445``):
 the planner there caches per-stage twiddle tables and Bluestein chirp pairs;
 here the cache holds *device-resident constant arrays* keyed by ``(n, dtype)``
 plus the factor tree that drives the matmul four-step engine, and the jitted
@@ -11,20 +11,20 @@ cf. ``tests/bluestein.rs:5-30``).
 Why matmul / four-step instead of a butterfly port
 --------------------------------------------------
 The reference's hot loop is a Stockham butterfly pass (``src/fft.rs:634-786``)
-vectorized with SSE/NEON/AVX lanes. On TPU the FLOP fountain is the MXU
-(128x128 systolic array), not the 8x128 VPU, so the idiomatic design computes
-the DFT as matrix products:
+vectorized with SSE/NEON/AVX lanes. On an accelerator the matrix units
+hold most of the arithmetic throughput, so this design computes the DFT
+as matrix products:
 
   * n <= cutoff:  y = x @ F_n  (one complex matmul; F_n is the symmetric DFT
     matrix, held as a cached device constant),
-  * larger n = n1*n2 (Bailey/four-step, the TPU-pod DFT formulation):
+  * larger n = n1*n2 (Bailey/four-step):
         A = x.reshape(n1, n2)
-        B = F_{n1} contracted over axis j1      (batched matmul on MXU)
+        B = F_{n1} contracted over axis j1      (batched matmul)
         C = B * W  with W[k1, j2] = w_n^{k1*j2} (fused elementwise twiddle)
-        D = C @ F_{n2}                          (batched matmul on MXU)
+        D = C @ F_{n2}                          (batched matmul)
         X = D.T.reshape(n)
     applied recursively, so 2^20 = (32*32) * (32*32) ... decomposes into a
-    tree whose leaves are all MXU matmuls.
+    tree whose leaves are all matmuls.
 
 All tables are computed on host in float64 (so twiddle angles for n = 2^20
 keep full precision; exponents reduced mod n in exact integer arithmetic)
@@ -147,7 +147,7 @@ def chirp_np(n: int) -> tuple[np.ndarray, np.ndarray]:
 
 @dataclass(frozen=True)
 class DftLeaf:
-    """Direct DFT matmul base case (MXU-native small-n kernel; the analog of
+    """Direct DFT matmul base case (small-n; the analog of
     the reference's unrolled fft2/4/8/16 base cases, ``src/fft_kernels.rs``)."""
     n: int
 

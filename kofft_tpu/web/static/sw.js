@@ -4,7 +4,7 @@
 // cleanup and a stale-while-revalidate policy for shell assets so
 // updates propagate without breaking offline use. API POSTs are never
 // cached (streaming frames are stateful).
-const CACHE = "kofft-tpu-spectrogram-v2";
+const CACHE = "kofft-spectrogram-v3";
 const SHELL = [
   "./",
   "./index.html",

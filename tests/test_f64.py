@@ -2,11 +2,10 @@
 
 The reference is generic over f32/f64 (``src/num.rs:5-29``; f64 AVX
 Stockham at ``src/fft.rs:914-1052``). Here the f64 tier rides the XLA
-backend on CPU/GPU: when JAX's x64 mode is on and the platform is not a
-TPU (``config.x64_active``), f64/complex128 inputs flow through the
-engine end-to-end — f64 twiddle tables, f64 matmuls, complex128 outputs.
-On TPU (no f64 hardware) or with x64 off, f64 downcasts to f32 exactly
-as before (the documented contract).
+backend on CPU/GPU: when JAX's x64 mode is on (``config.x64_active``),
+f64/complex128 inputs flow through the engine end-to-end — f64 twiddle
+tables, f64 matmuls, complex128 outputs. With x64 off, f64 downcasts to
+f32 (the documented contract).
 
 The reference's accuracy bar for f64 is ~1e-12 relative; these tests
 assert >= 250 dB SNR round trips, far beyond anything f32 can reach
@@ -170,8 +169,7 @@ def test_sharded_transforms_f64(x64, rng):
 
 def test_rfftn_and_tiled_f64(x64, rng):
     """The f64 tier extends to the r3 additions: rfftn (composed real +
-    complex N-D) and the tiled pipeline entries (engine fallback path
-    off-TPU)."""
+    complex N-D) and the tiled pipeline entries."""
     import kofft_tpu as kt
     x = rng.standard_normal((4, 8, 16))             # float64
     got = np.asarray(kt.rfftn(x))

@@ -58,34 +58,8 @@ def test_real_input(rng):
     assert snr_db(ref, got) > SNR
 
 
-def test_nd_jnp_zone_logic():
-    """The fused-fftn zone map is pure logic (measured v5e boundaries):
-    >= 2 pow2 axes in [2^10, 2^16] and >= 2^20 total points."""
-    zone = ndfft._nd_jnp_zone
-    assert zone((1024, 1024), (0, 1))
-    assert zone((2048, 2048), (0, 1))
-    assert not zone((1024, 1024), (1,))          # single axis
-    assert not zone((512, 512), (0, 1))          # < 2^20 points
-    assert not zone((1024, 1000), (0, 1))        # non-pow2 axis
-    assert not zone((1 << 17, 8, 1024), (0, 2))  # axis above 2^16
-    assert not zone((512, 512, 8), (0, 1))       # small grid, padded batch
-
-
-def test_fused_fftn_zone_branch_parity(rng, monkeypatch):
-    """Force the platform default to 'pallas' so the fused jnp.fftn zone
-    branch executes on CPU; parity vs the per-axis engine."""
-    monkeypatch.setattr(ndfft, "_platform_default", lambda: "pallas")
-    xr = rng.standard_normal((1024, 1024)).astype(np.float32)
-    xi = rng.standard_normal((1024, 1024)).astype(np.float32)
-    assert ndfft._nd_jnp_zone(xr.shape, (0, 1))
-    yr, yi = ndfft._fftn_planes(np.asarray(xr), np.asarray(xi), (0, 1),
-                                False, "auto")
-    ref = np.fft.fftn((xr + 1j * xi).astype(np.complex128))
-    got = np.asarray(yr) + 1j * np.asarray(yi)
-    assert snr_db(ref, got) > 80.0
-
-
 def test_fftn_split_jnpfft_backend_maps_to_xla(rng):
+    """backend='jnpfft' runs XLA's own fftn over the requested axes."""
     xr = rng.standard_normal((4, 64)).astype(np.float32)
     xi = np.zeros_like(xr)
     yr, yi = ndfft.fftn_split(xr, xi, backend="jnpfft")
@@ -112,10 +86,8 @@ def test_fftn_host_and_device_complex_input(rng):
     got_host = np.asarray(ndfft.fftn(x))
     assert snr_db(ref, got_host) > 80.0
     import jax.numpy as jnp
-    from kofft_tpu.ops.fft import complex_io_supported
-    if complex_io_supported():
-        got_dev = np.asarray(ndfft.fftn(jnp.asarray(x)))
-        assert snr_db(ref, got_dev) > 80.0
+    got_dev = np.asarray(ndfft.fftn(jnp.asarray(x)))
+    assert snr_db(ref, got_dev) > 80.0
 
 
 def test_fftn_empty_input_raises():
@@ -134,38 +106,6 @@ def test_fft2_fft3_rank_validation():
         ndfft.fft3(np.zeros((4, 4), dtype=np.float32))
     with pytest.raises(InvalidValueError):
         ndfft.ifft3(np.zeros((4, 4), dtype=np.float32))
-
-
-def test_fused_nd_route_and_inverse_scaling(rng, monkeypatch):
-    """The TPU-only fused-nd routing branch (forward + the inverse 1/n
-    scaling epilogue), exercised on CPU by forcing the platform gate and
-    swapping the kernel entry for its interpret form."""
-    from kofft_tpu.ops import pallas_kernels as PK
-
-    monkeypatch.setattr(ndfft, "_platform_default", lambda: "pallas")
-    import kofft_tpu.ops.pallas_fft as PF
-    monkeypatch.setattr(PF, "pallas_supported", lambda n, d: True)
-    real = PK.fused_ndfft_planes
-    monkeypatch.setattr(
-        PK, "fused_ndfft_planes",
-        lambda xr, xi, inverse=False: real(xr, xi, inverse, interpret=True))
-
-    shape = (512, 256)
-    xr = rng.standard_normal(shape).astype(np.float32)
-    xi = rng.standard_normal(shape).astype(np.float32)
-    try:
-        yr, yi = ndfft.fftn_split(xr, xi)
-        ref = np.fft.fftn(xr.astype(np.float64)
-                          + 1j * xi.astype(np.float64))
-        assert snr_db(ref, np.asarray(yr) + 1j * np.asarray(yi)) > 100.0
-        br, bi = ndfft.fftn_split(np.asarray(yr), np.asarray(yi),
-                                  inverse=True)
-        assert snr_db(xr.astype(np.float64) + 1j * xi.astype(np.float64),
-                      np.asarray(br) + 1j * np.asarray(bi)) > 100.0
-    finally:
-        # the jitted entries traced under the patched gates must not
-        # leak into other tests
-        ndfft._jit_fftn.cache_clear()
 
 
 def test_rfftn_matches_numpy(rng):
@@ -210,164 +150,6 @@ def test_rfftn_empty_axes_typed_error():
         kt.irfftn(np.zeros((4, 3), np.complex64), axes=())
 
 
-def test_fused_2d_zone_logic():
-    """Zone map for the phased 2-D kernel: last two dims transformed,
-    pow2 dims in [128, 2048], per-tier point caps (2^20 on the 6-pass
-    tiers, 2^22 on the 1-pass default tier)."""
-    from kofft_tpu.ops.pallas_kernels import fused_2d_zone as zone
-    assert zone((1024, 1024), (0, 1))
-    assert zone((1024, 1024), (-2, -1))
-    assert zone((512, 1024), (0, 1))
-    assert zone((8, 512, 512), (1, 2))       # batched: phased grid
-    assert zone((512, 512), (0, 1))          # beats dense fused-nd 1.5x
-    assert zone((256, 1024), (0, 1))
-    # 2^21-2^22/image: served by the 1-pass default tier only — the
-    # 6-pass tiers lose to XLA fftn there (1024x2048: 332 vs 320 us at
-    # highest; default 152 vs 320, and 2048^2 396.6 vs 651.7)
-    from kofft_tpu.config import set_precision
-    assert not zone((1024, 2048), (0, 1))
-    assert not zone((2048, 2048), (0, 1))
-    try:
-        set_precision("default")
-        assert zone((1024, 2048), (0, 1))
-        assert zone((2048, 2048), (0, 1))
-        assert not zone((2048, 4096), (0, 1))   # above the scratch cap
-        set_precision("high")                   # costs like highest
-        assert not zone((1024, 2048), (0, 1))
-    finally:
-        set_precision(None)
-    assert not zone((1024, 256), (0,))       # one axis
-    assert not zone((1024, 1000), (0, 1))    # non-pow2
-    assert not zone((64, 4096), (0, 1))      # dim below 128
-    assert not zone((8, 1024, 1024), (0, 1)) # not the last two dims
-    assert not zone((1024,), (0,))           # rank 1
-
-
-def test_fused_2d_route_and_inverse_scaling(rng, monkeypatch):
-    """The TPU-only phased 2-D routing branch (forward + inverse 1/n1n2
-    scaling), exercised on CPU by forcing the platform gate and swapping
-    the kernel entry for its interpret form — including the batched
-    leading-dim fold."""
-    from kofft_tpu.ops import pallas_kernels as PK
-
-    monkeypatch.setattr(ndfft, "_platform_default", lambda: "pallas")
-    import kofft_tpu.ops.pallas_fft as PF
-    monkeypatch.setattr(PF, "pallas_supported", lambda n, d: True)
-    real = PK.fused_fft2_planes
-    monkeypatch.setattr(
-        PK, "fused_fft2_planes",
-        lambda xr, xi, inverse=False: real(xr, xi, inverse, interpret=True))
-
-    try:
-        for shape in [(1024, 256), (2, 256, 1024)]:
-            assert PK.fused_2d_zone(shape, (len(shape) - 2, len(shape) - 1))
-            xr = rng.standard_normal(shape).astype(np.float32)
-            xi = rng.standard_normal(shape).astype(np.float32)
-            yr, yi = ndfft.fftn_split(xr, xi, axes=(-2, -1))
-            ref = np.fft.fftn(xr.astype(np.float64)
-                              + 1j * xi.astype(np.float64), axes=(-2, -1))
-            assert snr_db(ref, np.asarray(yr) + 1j * np.asarray(yi)) > 100.0
-            br, bi = ndfft.fftn_split(np.asarray(yr), np.asarray(yi),
-                                      axes=(-2, -1), inverse=True)
-            assert snr_db(xr.astype(np.float64) + 1j * xi.astype(np.float64),
-                          np.asarray(br) + 1j * np.asarray(bi)) > 100.0
-    finally:
-        ndfft._jit_fftn.cache_clear()
-
-
-def test_fused_2d_route_is_differentiable(rng, monkeypatch):
-    """grad and jvp flow through the 2-D pallas zone (kofft_pallas_dft2
-    linear primitive): the routes this kernel displaced (jnp.fft /
-    per-axis engine) were differentiable, so the zone must stay so.
-    Analytic oracle: for the unnormalized DFT, Parseval gives
-    d/dx sum|Fx|^2 = 2*n*x."""
-    import jax
-    import jax.numpy as jnp
-    from kofft_tpu.ops import pallas_kernels as PK
-
-    monkeypatch.setattr(ndfft, "_platform_default", lambda: "pallas")
-    import kofft_tpu.ops.pallas_fft as PF
-    monkeypatch.setattr(PF, "pallas_supported", lambda n, d: True)
-    real = PK.fused_fft2_planes
-    monkeypatch.setattr(
-        PK, "fused_fft2_planes",
-        lambda xr, xi, inverse=False: real(xr, xi, inverse, interpret=True))
-
-    shape = (1024, 256)
-    n = shape[0] * shape[1]
-    xr = jnp.asarray(rng.standard_normal(shape).astype(np.float32))
-    xi = jnp.asarray(rng.standard_normal(shape).astype(np.float32))
-
-    def loss(ar, ai):
-        yr, yi = ndfft._fftn_planes(ar, ai, (0, 1), False, "auto")
-        return jnp.sum(yr * yr + yi * yi)
-
-    try:
-        gr, gi = jax.grad(loss, argnums=(0, 1))(xr, xi)
-        assert snr_db(2.0 * n * np.asarray(xr, np.float64),
-                      np.asarray(gr)) > 100.0
-        assert snr_db(2.0 * n * np.asarray(xi, np.float64),
-                      np.asarray(gi)) > 100.0
-        # forward mode too (custom_vjp-style wrappers would break here)
-        _, tang = jax.jvp(loss, (xr, xi), (jnp.ones_like(xr),
-                                           jnp.zeros_like(xi)))
-        assert np.isfinite(float(tang))
-    finally:
-        ndfft._jit_fftn.cache_clear()
-
-
-def test_fused_nd_route_is_differentiable(rng, monkeypatch):
-    """grad and jvp flow through the fused N-D pallas zone
-    (kofft_pallas_dftn linear primitive): the einsum/jnp routes this
-    zone displaced were differentiable, so the zone must stay so.
-    Analytic oracle: d/dx sum|Fx|^2 = 2*n*x (Parseval, unnormalized)."""
-    import jax
-    import jax.numpy as jnp
-    from kofft_tpu.ops import pallas_kernels as PK
-
-    monkeypatch.setattr(ndfft, "_platform_default", lambda: "pallas")
-    import kofft_tpu.ops.pallas_fft as PF
-    monkeypatch.setattr(PF, "pallas_supported", lambda n, d: True)
-    real = PK.fused_ndfft_planes
-    monkeypatch.setattr(
-        PK, "fused_ndfft_planes",
-        lambda xr, xi, inverse=False: real(xr, xi, inverse, interpret=True))
-
-    shape = (512, 256)
-    assert PK.fused_nd_zone(shape, (0, 1))
-    assert not PK.fused_2d_zone(shape, (0, 1))   # routes to the N-D zone
-    n = shape[0] * shape[1]
-    xr = jnp.asarray(rng.standard_normal(shape).astype(np.float32))
-    xi = jnp.asarray(rng.standard_normal(shape).astype(np.float32))
-
-    def loss(ar, ai):
-        yr, yi = ndfft._fftn_planes(ar, ai, (0, 1), False, "auto")
-        return jnp.sum(yr * yr + yi * yi)
-
-    try:
-        gr, gi = jax.grad(loss, argnums=(0, 1))(xr, xi)
-        assert snr_db(2.0 * n * np.asarray(xr, np.float64),
-                      np.asarray(gr)) > 100.0
-        assert snr_db(2.0 * n * np.asarray(xi, np.float64),
-                      np.asarray(gi)) > 100.0
-        _, tang = jax.jvp(loss, (xr, xi), (jnp.ones_like(xr),
-                                           jnp.zeros_like(xi)))
-        assert np.isfinite(float(tang))
-        # vmap: the N-D kernel transforms EVERY axis, so the batcher
-        # must lax.map per slice, not fold the mapped dim into the shape
-        xb_r = jnp.stack([xr, 2.0 * xr])
-        xb_i = jnp.stack([xi, 2.0 * xi])
-        vr, vi = jax.vmap(
-            lambda a, b: ndfft._fftn_planes(a, b, (0, 1), False, "auto")
-        )(xb_r, xb_i)
-        y0r, y0i = ndfft._fftn_planes(xr, xi, (0, 1), False, "auto")
-        assert np.allclose(np.asarray(vr[0]), np.asarray(y0r), atol=1e-3)
-        assert np.allclose(np.asarray(vr[1]), 2 * np.asarray(y0r),
-                           atol=2e-3)
-    finally:
-        ndfft._jit_fftn.cache_clear()
-
-
 def test_rfftn_complex_input_rejected(rng):
     """Complex input raises the same typed error on BOTH the host and
     device entry (matching rfft's _prep_real; previously a complex
@@ -386,113 +168,3 @@ def test_rfftn_complex_input_rejected(rng):
         kt.rfftn(z_dev)
     with pytest.raises(InvalidValueError):
         kt.rfftn_split(z_dev)
-
-
-def test_fused_2d_big_zone_logic():
-    """Zone map for the beyond-VMEM two-call 2-D pair (r4): last two
-    dims, pow2 dims in [128, 8192], per-image points ABOVE the one-call
-    zone's per-tier cap up to 2^26 — the two zones tile the 2-D range
-    without overlap at every tier."""
-    from kofft_tpu.config import set_precision
-    from kofft_tpu.ops.pallas_kernels import (fused_2d_big_zone as big,
-                                              fused_2d_zone as small)
-    assert big((4096, 4096), (0, 1))
-    assert big((2048, 2048), (0, 1))         # above the 2^20 highest cap
-    assert big((4096, 4096), (-2, -1))
-    assert big((2, 2048, 4096), (1, 2))      # batched leading dim
-    assert not big((1024, 1024), (0, 1))     # one-call zone owns it
-    assert big((8192, 8192), (0, 1))         # 2^26: the zone ceiling
-    assert not big((16384, 16384), (0, 1))   # above the dim cap
-    assert not big((4096, 4000), (0, 1))     # non-pow2
-    assert not big((64, 1 << 20), (0, 1))    # dim below 128
-    assert not big((4096, 4096), (0,))       # one axis
-    # no overlap and no gap against the one-call zone at either tier
-    for prec in (None, "default"):
-        try:
-            set_precision(prec)
-            for shape in [(1024, 1024), (1024, 2048), (2048, 2048),
-                          (2048, 4096), (4096, 4096)]:
-                s = small(shape, (0, 1))
-                b = big(shape, (0, 1))
-                assert not (s and b), (shape, prec)
-                assert s or b, (shape, prec)
-        finally:
-            set_precision(None)
-
-
-def test_fused_2d_big_pair_parity(rng):
-    """The two-call beyond-VMEM pair matches numpy (forward, inverse
-    via conjugation, batched fold) in interpret mode — direct kernel
-    parity below the zone floor, where interpret is affordable."""
-    import jax.numpy as jnp
-
-    from kofft_tpu.ops.pallas_kernels import fused_fft2_big_planes
-    for shape in [(256, 128), (2, 128, 256)]:
-        xr = rng.standard_normal(shape).astype(np.float32)
-        xi = rng.standard_normal(shape).astype(np.float32)
-        yr, yi = fused_fft2_big_planes(jnp.asarray(xr), jnp.asarray(xi),
-                                       interpret=True)
-        ref = np.fft.fftn(xr.astype(np.float64)
-                          + 1j * xi.astype(np.float64), axes=(-2, -1))
-        assert snr_db(ref, np.asarray(yr) + 1j * np.asarray(yi)) > 100.0
-        # unnormalized inverse via the conjugation identity
-        br, bi = fused_fft2_big_planes(np.asarray(yr), np.asarray(yi),
-                                       inverse=True, interpret=True)
-        n = shape[-1] * shape[-2]
-        assert snr_db(xr.astype(np.float64) + 1j * xi.astype(np.float64),
-                      (np.asarray(br) + 1j * np.asarray(bi)) / n) > 100.0
-
-
-def test_fused_2d_big_route_and_grad(rng, monkeypatch):
-    """Routing + differentiability of the big-2D zone on CPU: the zone
-    floor is relaxed so a small image routes through the
-    kofft_pallas_dft2big linear primitive in interpret mode; grad
-    matches the Parseval oracle d/dx sum|Fx|^2 = 2*n*x (the per-axis
-    routes this zone displaces are differentiable — the ADVICE r3
-    contract for every new kernel route)."""
-    import jax
-    import jax.numpy as jnp
-
-    from kofft_tpu.ops import pallas_kernels as PK
-
-    monkeypatch.setattr(ndfft, "_platform_default", lambda: "pallas")
-    import kofft_tpu.ops.pallas_fft as PF
-    monkeypatch.setattr(PF, "pallas_supported", lambda n, d: True)
-    real = PK.fused_fft2_big_planes
-    monkeypatch.setattr(
-        PK, "fused_fft2_big_planes",
-        lambda xr, xi, inverse=False: real(xr, xi, inverse, interpret=True))
-    # shrink the zone so (512, 256) rides the big pair on CPU: one-call
-    # zone off, big zone floor down
-    monkeypatch.setattr(PK, "fused_2d_zone", lambda shape, axes: False)
-    real_zone = PK.fused_2d_big_zone
-    monkeypatch.setattr(
-        PK, "fused_2d_big_zone",
-        lambda shape, axes: (len(shape) >= 2 and len(axes) == 2
-                             and shape[-1] * shape[-2] >= (1 << 17)))
-
-    shape = (512, 256)
-    n = shape[0] * shape[1]
-    xr = jnp.asarray(rng.standard_normal(shape).astype(np.float32))
-    xi = jnp.asarray(rng.standard_normal(shape).astype(np.float32))
-    try:
-        yr, yi = ndfft.fftn_split(xr, xi, axes=(-2, -1))
-        ref = np.fft.fftn(np.asarray(xr, np.float64)
-                          + 1j * np.asarray(xi, np.float64), axes=(-2, -1))
-        assert snr_db(ref, np.asarray(yr) + 1j * np.asarray(yi)) > 100.0
-
-        def loss(ar, ai):
-            zr, zi = ndfft._fftn_planes(ar, ai, (0, 1), False, "auto")
-            return jnp.sum(zr * zr + zi * zi)
-
-        gr, gi = jax.grad(loss, argnums=(0, 1))(xr, xi)
-        assert snr_db(2.0 * n * np.asarray(xr, np.float64),
-                      np.asarray(gr)) > 100.0
-        assert snr_db(2.0 * n * np.asarray(xi, np.float64),
-                      np.asarray(gi)) > 100.0
-        _, tang = jax.jvp(loss, (xr, xi), (jnp.ones_like(xr),
-                                           jnp.zeros_like(xi)))
-        assert np.isfinite(float(tang))
-    finally:
-        ndfft._jit_fftn.cache_clear()
-    assert real_zone((4096, 4096), (0, 1))

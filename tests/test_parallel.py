@@ -1,7 +1,7 @@
 """Sharded NDFFT / STFT on the 8-virtual-device CPU mesh.
 
 These pin the parity contract: mesh-sharded execution is bit-compatible
-(up to f32 reduction order) with the single-device engine — the TPU analog
+(up to f32 reduction order) with the single-device engine — the analog
 of the reference's parallel-vs-serial threshold tests
 (tests/parallel_stockham.rs:6-28).
 """
@@ -820,3 +820,39 @@ def test_stft_hier_halo_bytes_by_tier(rng):
     per = hlo_ppermute_bytes_by_tier(txt, chips_per_slice=c)
     assert per == {"ici": s * (c - 1) * halo * 4,
                    "dcn": (s - 1) * halo * 4}, per
+
+
+_WRAPPED_A2A = """
+%wrapped_all_to_all_computation (param_0: f32[16,16]) -> f32[16,16] {
+  %param_0 = f32[16,16]{1,0} parameter(0)
+  ROOT %wrapped_all_to_all = f32[16,16]{1,0} all-to-all(%param_0), replica_groups={{0,1,2,3}}, dimensions={0}
+}
+
+ENTRY %main (p0: f32[16,16], p1: f32[16,16]) -> f32[16,16] {
+  %p0 = f32[16,16]{1,0} parameter(0)
+  %p1 = f32[16,16]{1,0} parameter(1)
+  %all-to-all-start = ((f32[16,16]{1,0}), f32[16,16]{1,0}) async-start(%p0), calls=%wrapped_all_to_all_computation
+  %all-to-all-done = f32[16,16]{1,0} async-done(%all-to-all-start)
+  %add = f32[16,16]{1,0} add(%all-to-all-done, %p1)
+  %all-to-all-start.1 = ((f32[16,16]{1,0}), f32[16,16]{1,0}) async-start(%add), calls=%wrapped_all_to_all_computation
+  ROOT %all-to-all-done.1 = f32[16,16]{1,0} async-done(%all-to-all-start.1)
+}
+"""
+
+
+@pytest.mark.parametrize("case", ["bytes", "groups", "sources"])
+def test_hlo_audits_read_async_wrapped_all_to_all(case):
+    """GPU modules may wrap a synchronous all-to-all in an async
+    computation under another name; the audits read the opcode, count
+    the wrapped op once per async-start that calls it, and treat the
+    async-start as the collective in the dependency graph."""
+    from kofft_tpu.parallel import validate as V
+    if case == "bytes":
+        assert V.hlo_all_to_all_local_bytes(_WRAPPED_A2A) == 2 * 16 * 16 * 4
+    elif case == "groups":
+        assert V.hlo_a2a_bytes_by_group_size(_WRAPPED_A2A) == {
+            4: 2 * 16 * 16 * 4}
+    else:
+        # the second start depends on the first: one independent source
+        assert V.hlo_a2a_independent_sources(_WRAPPED_A2A) == {
+            "total": 2, "independent_sources": 1}

@@ -79,7 +79,7 @@ def test_env_override_subprocess():
             "print(c.dft_cutoff, c.backend, c.shard_threshold)")
     env = dict(os.environ, KOFFT_TPU_DFT_CUTOFF="333",
                KOFFT_TPU_BACKEND="jnpfft", KOFFT_TPU_SHARD_THRESHOLD="7777",
-               KOFFT_TPU_PLATFORM="cpu")
+               JAX_PLATFORMS="cpu")
     r = subprocess.run([sys.executable, "-c", code], cwd=REPO, env=env,
                        capture_output=True, text=True, timeout=120)
     assert r.returncode == 0, r.stderr

@@ -331,20 +331,6 @@ def test_stft_istft_device_input_and_jit(rng):
     assert snr_db(rback, back) > SNR
 
 
-def test_stft_istft_no_complex_io_transport(rng, monkeypatch):
-    from kofft_tpu.ops import stft as stft_mod
-    monkeypatch.setattr(stft_mod, "complex_io_supported", lambda: False)
-    x = rng.standard_normal(96).astype(np.float32)
-    w = np.asarray(W.hann(16))
-    y = kt.stft(x, w, hop=8)
-    assert isinstance(y, np.ndarray) and y.dtype.kind == "c"
-    back = kt.istft(y, w, hop=8, length=96)
-    assert isinstance(back, np.ndarray)
-    ref = _ref_stft(x.astype(np.float64), w.astype(np.float64), 8)
-    rback = _ref_istft(ref, w.astype(np.float64), 8, 96)
-    assert snr_db(rback, back) > SNR
-
-
 def test_inverse_frame_split_roundtrip(rng):
     """frame -> inverse_frame gives the windowed time segment
     (reference inverse_frame, stft.rs:384-399)."""

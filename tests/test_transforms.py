@@ -262,7 +262,7 @@ def test_public_alias_surface(rng):
         assert snr_db(ref_dst(x, kind), np.asarray(fn(x))) > 90.0
 
 
-def test_istft_split_roundtrip_and_error_names(rng):
+def test_istft_split_roundtrip_and_error_names(rng, tmp_path, monkeypatch):
     import kofft_tpu as kt
     from kofft_tpu.ops import window as W
     n, win, hop = 1 << 12, 256, 64
@@ -281,9 +281,13 @@ def test_istft_split_roundtrip_and_error_names(rng):
     # compilation-cache helper smoke (config flag set + idempotent)
     import jax as _jax
     prev = _jax.config.jax_compilation_cache_dir
-    kt.enable_compilation_cache("/tmp/kofft_cc_test")
-    assert _jax.config.jax_compilation_cache_dir == "/tmp/kofft_cc_test"
-    if prev:
+    monkeypatch.delenv("JAX_COMPILATION_CACHE_DIR", raising=False)
+    try:
+        for _ in range(2):
+            got = kt.enable_compilation_cache(tmp_path / "cc")
+            assert got == str(tmp_path / "cc")
+            assert _jax.config.jax_compilation_cache_dir == got
+    finally:
         _jax.config.update("jax_compilation_cache_dir", prev)
 
 
@@ -296,8 +300,7 @@ def test_dht_batch_and_multi_channel_aliases(rng):
 
 
 def test_hilbert_public_entries(rng):
-    """hilbert() = Im(analytic); hilbert_analytic merges planes (host
-    numpy on complex-banned transports)."""
+    """hilbert() = Im(analytic); hilbert_analytic merges planes."""
     from kofft_tpu.ops.hilbert import (hilbert, hilbert_analytic,
                                        hilbert_analytic_split)
     x = rng.standard_normal(64).astype(np.float32)
